@@ -1,10 +1,10 @@
 # Development / CI entry points.  The suite runs on the virtual 8-device
-# CPU mesh (tests/conftest.py forces JAX_PLATFORMS=cpu); bench targets use
-# the ambient backend (the real TPU chip when present).
+# CPU mesh (tests/conftest.py forces JAX_PLATFORMS=cpu, kernels in
+# interpret mode); the smoke and bench targets need an NVIDIA GPU.
 
 PY ?= python
 
-.PHONY: test test-fast native bench-smoke bench verify ci
+.PHONY: test test-fast native smoke smoke-multi bench bench-all ci
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -15,14 +15,19 @@ test-fast:
 native:
 	$(MAKE) -C native
 
-bench-smoke:
-	JAX_PLATFORMS=cpu $(PY) bench.py --smoke
+# one GPU: every phase of the main path, compiled, bit-checked
+smoke:
+	$(PY) chip_smoke.py
+
+# four GPUs: the sharded four-step, channelizer and convolution
+smoke-multi:
+	$(PY) chip_smoke.py --multi
 
 bench:
+	$(PY) bench.py
+
+bench-all:
 	$(PY) bench.py --all
 
-verify:
-	$(PY) bench.py --verify
-
-# the CI gate: native oracle builds, full suite green, bench smoke emits
-ci: native test bench-smoke
+# the CI gate: native oracle builds, full suite green
+ci: native test

@@ -1,7 +1,7 @@
 // Native exact-integer radix-2 FFT/IFFT engine.
 //
 // C++ implementation of the framework's golden arithmetic — the same
-// bit-level semantics as intfftk_tpu/golden/int_model.py (which mirrors the
+// bit-level semantics as intfftk/golden/int_model.py (which mirrors the
 // reference RTL: /root/reference/src/vhdl/fft/int_dif2_fly.vhd,
 // int_dit2_fly.vhd, twiddle/rom_twiddle_int.vhd, twiddle/row_twiddle_tay.vhd,
 // math/cmult/int_cmult_dsp48.vhd).  Role in the framework:

@@ -1,8 +1,8 @@
 """Worker process for the REAL 2-process jax.distributed test.
 
 Each process owns 4 virtual CPU devices; the coordinator glues them into
-one 8-device process group (the exact bring-up a 2-host DCN pod uses —
-SURVEY §2.8 communication-backend row, BASELINE.md 2+ hosts line).  The
+one 8-device process group (the bring-up two hosts use — SURVEY §2.8
+communication-backend row, BASELINE.md 2+ hosts line).  The
 ('ch', 'fft') pod mesh then spans the process boundary and a
 FourStepPlan runs with its all_to_all corner turns crossing it; the
 result is value-checked against the host golden oracle on every process.
@@ -37,11 +37,11 @@ def main(coordinator: str, num_processes: int, process_id: int,
     from jax.sharding import NamedSharding, PartitionSpec as P
     from jax.experimental import multihost_utils
 
-    from intfftk_tpu.config import FFTConfig
-    from intfftk_tpu.golden.four_step import four_step_int
-    from intfftk_tpu.parallel import FourStepPlan
-    from intfftk_tpu.parallel.mesh import CHANNEL_AXIS, FFT_AXIS
-    from intfftk_tpu.parallel.multihost import (initialize_multihost,
+    from intfftk.config import FFTConfig
+    from intfftk.golden.four_step import four_step_int
+    from intfftk.parallel import FourStepPlan
+    from intfftk.parallel.mesh import CHANNEL_AXIS, FFT_AXIS
+    from intfftk.parallel.multihost import (initialize_multihost,
                                                 pod_mesh)
 
     initialize_multihost(coordinator=coordinator,

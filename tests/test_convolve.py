@@ -6,9 +6,9 @@ import pytest
 
 from conftest import cpu_mesh
 
-from intfftk_tpu.config import snr_db
-from intfftk_tpu.golden import make_conv_spec, overlap_save_int
-from intfftk_tpu.parallel.convolve import OverlapSaveConv
+from intfftk.config import snr_db
+from intfftk.golden import make_conv_spec, overlap_save_int
+from intfftk.parallel.convolve import OverlapSaveConv
 
 
 def _taps(m, width, seed=0, complex_taps=False):

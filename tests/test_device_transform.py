@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden import cmult_int, fft_int
-from intfftk_tpu.golden.stimulus import chirp_stimulus, random_stimulus
-from intfftk_tpu.ops import FFTPlan, fft, fft_ifft_pair, ifft
-from intfftk_tpu.ops.intmath import CmultPlan, cmult_exact
+from intfftk.config import FFTConfig
+from intfftk.golden import cmult_int, fft_int
+from intfftk.golden.stimulus import chirp_stimulus, random_stimulus
+from intfftk.ops import FFTPlan, fft, fft_ifft_pair, ifft
+from intfftk.ops.intmath import CmultPlan, cmult_exact
 
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
 
@@ -226,7 +226,7 @@ def test_pair_fly_knockouts():
 
     # fwd knocked out: fwd emits bitrev(x), the live natural-order IFFT
     # consumes it -> pair == IFFT(x[rev]) at the widened config
-    from intfftk_tpu.golden.float_model import bitrev_indices
+    from intfftk.golden.float_model import bitrev_indices
     icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
     rev = bitrev_indices(n)
     gr, gi = fft_int(re[rev], im[rev], icfg, inverse=True)
@@ -246,10 +246,9 @@ def test_pair_fly_knockouts():
 def test_staged_monolithic_bits_64k_512k(n):
     """The staged XLA core carries the MONOLITHIC bit contract at the
     reference's large sizes (int_fftNk.vhd:12 bit-specifies N up to
-    512K; per-stage rounding int_dif2_fly.vhd:144-219).  The fused
-    LargeFFTPlan(schedule="monolithic") covers n <= 256K in-kernel;
-    this pins the monolithic bits at 64K and the 512K maximum on the
-    staged path, batch 1, scaled/round int16."""
+    512K; per-stage rounding int_dif2_fly.vhd:144-219), the engine of
+    LargeFFTPlan(schedule="monolithic"): monolithic bits at 64K and the
+    512K maximum, batch 1, scaled/round int16."""
     cfg = FFTConfig(n=n, mode="scaled", rounding="round", data_width=16,
                     twiddle_width=16)
     re, im = random_stimulus(n, 15, seed=31)

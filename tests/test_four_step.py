@@ -8,11 +8,11 @@ import pytest
 
 from conftest import cpu_mesh
 
-from intfftk_tpu.config import FFTConfig, snr_db
-from intfftk_tpu.golden import fft_int
-from intfftk_tpu.golden.four_step import (four_step_float, four_step_int)
-from intfftk_tpu.golden.stimulus import random_stimulus
-from intfftk_tpu.parallel import Channelizer, FourStepPlan
+from intfftk.config import FFTConfig, snr_db
+from intfftk.golden import fft_int
+from intfftk.golden.four_step import (four_step_float, four_step_int)
+from intfftk.golden.stimulus import random_stimulus
+from intfftk.parallel import Channelizer, FourStepPlan
 
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
 
@@ -166,9 +166,9 @@ def test_channelizer_inverse_roundtrip():
     and the inverse is bit-exact vs golden."""
     import dataclasses
     from conftest import cpu_mesh
-    from intfftk_tpu.parallel.channelizer import Channelizer
-    from intfftk_tpu.parallel.mesh import CHANNEL_AXIS
-    from intfftk_tpu.golden import fft_int, random_stimulus
+    from intfftk.parallel.channelizer import Channelizer
+    from intfftk.parallel.mesh import CHANNEL_AXIS
+    from intfftk.golden import fft_int, random_stimulus
 
     mesh = cpu_mesh((8,), (CHANNEL_AXIS,))
     cfg = FFTConfig(n=256, mode="unscaled", data_width=12,

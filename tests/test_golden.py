@@ -2,7 +2,7 @@
 
 Strategy mirrors the reference's own validation ladder (SURVEY §4):
 1. float lane model vs numpy.fft        (= fn_radix2 vs Octave builtin fft)
-2. integer in-place model vs lane model (= TPU index algebra vs RTL schedule)
+2. integer in-place model vs lane model (= device index algebra vs RTL schedule)
 3. integer model SNR vs float reference (mode-dependent bounds)
 4. roundtrip identity                   (= fft_double_test)
 5. bypass-fly permutation-only check    (= USE_FLY=0 fixture)
@@ -13,8 +13,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from intfftk_tpu.config import FFTConfig, snr_db
-from intfftk_tpu.golden import (bitrev_indices, chirp_stimulus, fft_dif_float,
+from intfftk.config import FFTConfig, snr_db
+from intfftk.golden import (bitrev_indices, chirp_stimulus, fft_dif_float,
                                 fft_dit_float, fft_int, fft_int_lanes,
                                 random_stimulus, stage_twiddles_float,
                                 stage_twiddles_int)
@@ -195,7 +195,7 @@ def test_config_validation():
 # ------------------------------------------------------------- sanitizer
 
 def test_overflow_sanitizer_clean_with_headroom():
-    from intfftk_tpu.golden.sanitize import check_overflow
+    from intfftk.golden.sanitize import check_overflow
     cfg = FFTConfig(n=256, mode="unscaled", data_width=16, twiddle_width=16)
     re, im = random_stimulus(256, 15, seed=1)  # 1 bit headroom
     rep = check_overflow(re, im, cfg)
@@ -203,7 +203,7 @@ def test_overflow_sanitizer_clean_with_headroom():
 
 
 def test_overflow_sanitizer_detects_fullscale_wrap():
-    from intfftk_tpu.golden.sanitize import check_overflow
+    from intfftk.golden.sanitize import check_overflow
     cfg = FFTConfig(n=256, mode="unscaled", data_width=16, twiddle_width=16)
     re, im = random_stimulus(256, 16, seed=1)  # full scale: sqrt2 wraps
     rep = check_overflow(re, im, cfg)
@@ -215,7 +215,7 @@ def test_overflow_sanitizer_scaled_clean_with_headroom():
     """Scaled mode also wraps on full-scale corner inputs (the same sqrt2
     complex-rotation excess as unscaled — a property of the reference
     arithmetic as well); one bit of headroom makes it provably clean."""
-    from intfftk_tpu.golden.sanitize import check_overflow
+    from intfftk.golden.sanitize import check_overflow
     for rnd in ("truncate", "round"):
         cfg = FFTConfig(n=512, mode="scaled", rounding=rnd)
         re, im = random_stimulus(512, 15, seed=2)
@@ -224,7 +224,7 @@ def test_overflow_sanitizer_scaled_clean_with_headroom():
 
 
 def test_overflow_sanitizer_flags_bad_input():
-    from intfftk_tpu.golden.sanitize import check_overflow
+    from intfftk.golden.sanitize import check_overflow
     cfg = FFTConfig(n=64, data_width=12)
     re, im = random_stimulus(64, 16, seed=3)  # 16-bit data in 12-bit config
     rep = check_overflow(re, im, cfg)
@@ -238,7 +238,7 @@ def test_taylor_use_mlt_equivalence():
     bit-identical in every legal configuration: MATHPI*(2^(ii+1)-1) <
     pi*2^14 < 2^16, so the ROM's 16-bit wrap never engages
     (row_twiddle_tay.vhd:206-240)."""
-    from intfftk_tpu.golden.twiddle import taylor_mathpi, taylor_mpi
+    from intfftk.golden.twiddle import taylor_mathpi, taylor_mpi
     for ser in ("old", "new"):
         for ii in range(8):
             cnt = np.arange(1 << (ii + 1))
@@ -251,7 +251,7 @@ def test_taylor_use_mlt_equivalence():
 def test_taylor_mathpi_pinned():
     """The VHDL elaboration constants, re-derived by hand:
     INTEGER(MATH_PI * 2^(13-ii)) for XSER=OLD, 2^(11-ii) for NEW."""
-    from intfftk_tpu.golden.twiddle import taylor_mathpi
+    from intfftk.golden.twiddle import taylor_mathpi
     assert taylor_mathpi(0, "old") == 25736   # pi * 2^13
     assert taylor_mathpi(1, "old") == 12868
     assert taylor_mathpi(7, "old") == 201     # pi * 2^6
@@ -270,7 +270,7 @@ def test_taylor_xser_variants_pinned():
     with rnd = round-half-up at bit XS-1.
     """
     import math
-    from intfftk_tpu.golden.twiddle import stage_twiddles_int
+    from intfftk.golden.twiddle import stage_twiddles_int
 
     mag = 32767
     re0 = int(np.floor(mag * math.cos(math.pi / 1024) + 0.5))
@@ -297,7 +297,7 @@ def test_taylor_xser_variants_pinned():
 def test_taylor_new_accuracy():
     """Both XSER sets track the float twiddles to a few LSB."""
     import math
-    from intfftk_tpu.golden.twiddle import (magnitude, stage_twiddles_float,
+    from intfftk.golden.twiddle import (magnitude, stage_twiddles_float,
                                             stage_twiddles_int)
     ref = stage_twiddles_float(12) * magnitude(16)
     for gen in ("auto", "taylor_new"):

@@ -8,11 +8,11 @@ import os
 import numpy as np
 import pytest
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden import fft_int, random_stimulus, stage_twiddles_int
+from intfftk.config import FFTConfig
+from intfftk.golden import fft_int, random_stimulus, stage_twiddles_int
 
 try:
-    from intfftk_tpu.runtime import NativeGolden, native_available
+    from intfftk.runtime import NativeGolden, native_available
     HAVE = native_available()
 except Exception:
     HAVE = False
@@ -100,7 +100,7 @@ def test_native_bypass_and_guards(eng):
 def test_native_twiddle_variants(eng, gen):
     """C++ twin matches the Python tables for every generator variant,
     including the XSER="NEW" constant set at a Taylor stage."""
-    from intfftk_tpu.golden.twiddle import stage_twiddles_int
+    from intfftk.golden.twiddle import stage_twiddles_int
     p = 12
     gre, gim = stage_twiddles_int(p, 16, gen)
     nre, nim = eng.stage_twiddles(p, 16, gen)

@@ -1,16 +1,16 @@
 """Pallas fused-kernel path vs the golden model — bit-exact in interpreter
-mode (CPU CI); the same kernels compile for real TPUs (exercised by
-bench.py / __graft_entry__.py on hardware)."""
+mode (CPU CI); the same kernels compile through Triton on the GPU
+(``chip_smoke.py``, ``bench.py``)."""
 
 import numpy as np
 import pytest
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden import fft_int, random_stimulus
-from intfftk_tpu.golden.four_step import four_step_int
-from intfftk_tpu.ops.pallas_fft import (LANE_TILE, LargeFFTPlan,
-                                        PallasFFTPlan)
+from intfftk.config import FFTConfig
+from intfftk.golden import fft_int, random_stimulus
+from intfftk.golden.four_step import four_step_int
+from intfftk.ops.pallas_fft import LargeFFTPlan, PallasFFTPlan
 
+BATCH = 128
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
 
 
@@ -21,7 +21,7 @@ def test_pallas_fwd_bitexact(n, mode, rounding):
                     twiddle_width=16)
     if cfg.output_width > 32:
         pytest.skip("width")
-    re, im = random_stimulus(n, 16, seed=n, batch=(LANE_TILE,))
+    re, im = random_stimulus(n, 16, seed=n, batch=(BATCH,))
     gr, gi = fft_int(re, im, cfg)
     dr, di = PallasFFTPlan(cfg, layout="bn", interpret=True)(re, im)
     np.testing.assert_array_equal(gr, np.asarray(dr, np.int64))
@@ -35,7 +35,7 @@ def test_pallas_inv_bitexact(mode, rounding):
                     twiddle_width=18)
     if cfg.output_width > 32:
         pytest.skip("width")
-    re, im = random_stimulus(n, 14, seed=7, batch=(LANE_TILE,))
+    re, im = random_stimulus(n, 14, seed=7, batch=(BATCH,))
     gr, gi = fft_int(re, im, cfg, inverse=True)
     dr, di = PallasFFTPlan(cfg, inverse=True, layout="bn",
                            interpret=True)(re, im)
@@ -44,9 +44,9 @@ def test_pallas_inv_bitexact(mode, rounding):
 
 
 def test_pallas_nb_layout():
-    """Native [n, B] layout, multiple lane tiles."""
+    """Native [n, B] layout, many kernel blocks."""
     cfg = FFTConfig(n=256)
-    re, im = random_stimulus(256, 16, seed=3, batch=(2 * LANE_TILE,))
+    re, im = random_stimulus(256, 16, seed=3, batch=(2 * BATCH,))
     gr, gi = fft_int(re, im, cfg)
     dr, di = PallasFFTPlan(cfg, layout="nb", interpret=True)(re.T, im.T)
     np.testing.assert_array_equal(gr.T, np.asarray(dr, np.int64))
@@ -57,7 +57,7 @@ def test_pallas_wide_twiddle_limbs():
     """Config driving the multi-limb cmult tiers inside the kernel."""
     cfg = FFTConfig(n=256, mode="scaled", rounding="round", data_width=24,
                     twiddle_width=25)
-    re, im = random_stimulus(256, 24, seed=4, batch=(LANE_TILE,))
+    re, im = random_stimulus(256, 24, seed=4, batch=(BATCH,))
     gr, gi = fft_int(re, im, cfg)
     dr, di = PallasFFTPlan(cfg, layout="bn", interpret=True)(re, im)
     np.testing.assert_array_equal(gr, np.asarray(dr, np.int64))
@@ -66,7 +66,7 @@ def test_pallas_wide_twiddle_limbs():
 
 def test_pallas_bypass_fly():
     cfg = FFTConfig(n=128, bypass_fly=True)
-    re, im = random_stimulus(128, 16, seed=5, batch=(LANE_TILE,))
+    re, im = random_stimulus(128, 16, seed=5, batch=(BATCH,))
     gr, gi = fft_int(re, im, cfg)
     dr, di = PallasFFTPlan(cfg, layout="bn", interpret=True)(re, im)
     np.testing.assert_array_equal(gr, np.asarray(dr, np.int64))
@@ -76,9 +76,14 @@ def test_pallas_bypass_fly():
 def test_pallas_guards():
     with pytest.raises(NotImplementedError):
         PallasFFTPlan(FFTConfig(n=8192))
-    plan = PallasFFTPlan(FFTConfig(n=64), interpret=True)
-    with pytest.raises(ValueError):
-        plan(np.zeros((64, 100)), np.zeros((64, 100)))  # batch % 128 != 0
+    cfg = FFTConfig(n=64)
+    plan = PallasFFTPlan(cfg, interpret=True)
+    # any batch: the wrapper pads to whole blocks and cuts the result
+    re, im = random_stimulus(64, 16, seed=1, batch=(100,))
+    yr, yi = plan(re.T, im.T)
+    gr, gi = fft_int(re, im, cfg)
+    np.testing.assert_array_equal(gr.T, np.asarray(yr, np.int64))
+    np.testing.assert_array_equal(gi.T, np.asarray(yi, np.int64))
     with pytest.raises(ValueError):
         plan(np.zeros((32, 128)), np.zeros((32, 128)))  # wrong n
 
@@ -116,7 +121,7 @@ def test_pallas_bitrev_order_pair():
     cfg = FFTConfig(n=256, mode="unscaled", data_width=12, twiddle_width=16)
     icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
                                data_width=cfg.output_width)
-    re, im = random_stimulus(256, 11, seed=9, batch=(LANE_TILE,))
+    re, im = random_stimulus(256, 11, seed=9, batch=(BATCH,))
     fwd = PallasFFTPlan(cfg, layout="bn", order="bitrev", interpret=True)
     inv = PallasFFTPlan(icfg, inverse=True, layout="bn", order="bitrev",
                         interpret=True)
@@ -126,7 +131,7 @@ def test_pallas_bitrev_order_pair():
     assert np.max(np.abs(np.asarray(xr, np.int64) - re)) < 8
     assert np.max(np.abs(np.asarray(xi, np.int64) - im)) < 8
     # and bitrev order is exactly natural order permuted
-    from intfftk_tpu.golden import bitrev_indices, fft_int
+    from intfftk.golden import bitrev_indices, fft_int
     gr, gi = fft_int(re, im, cfg)
     rev = bitrev_indices(256)
     np.testing.assert_array_equal(gr[..., rev], np.asarray(yr, np.int64))
@@ -194,7 +199,7 @@ def test_large_fft_wide_roundtrip():
     np.testing.assert_array_equal(hi, np.asarray(xi))
     # scaled inverse of unscaled forward recovers the input up to twiddle
     # quantization noise
-    from intfftk_tpu.config import snr_db
+    from intfftk.config import snr_db
     s = snr_db(re + 1j * im, np.asarray(xr) + 1j * np.asarray(xi))
     assert s > 80, s
 
@@ -275,10 +280,16 @@ def test_monolithic_schedule_taylor_8k():
     np.testing.assert_array_equal(gi, np.asarray(di, np.int64))
 
 
-def test_monolithic_beyond_vmem_knee_raises():
+def test_monolithic_large_runs_staged_core():
+    """The monolithic schedule at any size runs the staged XLA core; the
+    fused engine refuses it rather than computing other bits."""
+    from intfftk.ops.transform import FFTPlan
     cfg = FFTConfig(n=1 << 19, mode="scaled", rounding="round")
+    plan = LargeFFTPlan(cfg, interpret=True, schedule="monolithic")
+    assert plan.kernel == "xla" and isinstance(plan._mono, FFTPlan)
     with pytest.raises(NotImplementedError):
-        LargeFFTPlan(cfg, interpret=True, schedule="monolithic")
+        LargeFFTPlan(cfg, interpret=True, schedule="monolithic",
+                     kernel="pallas")
 
 
 def test_intmath_fast_identities():
@@ -287,7 +298,7 @@ def test_intmath_fast_identities():
     (``int_dif2_fly.vhd:281-304``), and shift_wrap's fused bit-field
     extract vs shift-then-wrap (the DSP48 output slice)."""
     import jax.numpy as jnp
-    from intfftk_tpu.ops.intmath import neg_guarded, shift_wrap, wrap_width
+    from intfftk.ops.intmath import neg_guarded, shift_wrap, wrap_width
 
     edge = np.array([-2**31, -2**31 + 1, -3, -2, -1, 0, 1, 2, 3,
                      2**31 - 2, 2**31 - 1], np.int64)
@@ -305,10 +316,10 @@ def test_intmath_fast_identities():
 
 
 def test_audit_kernel_ops():
-    """The traced roofline numerator: counts drop when trivial stages are
-    cheaper (the flat 12/stage hand model overcharged them), and raw
-    order costs the same ALU as natural (reorders are moves, not ALU)."""
-    from intfftk_tpu.utils.roofline import audit_kernel_ops
+    """The traced roofline numerator of the two-pass engine: counts drop
+    when trivial stages are cheaper (the flat 12/stage hand model
+    overcharged them), and the Stockham reorders are moves, not ALU."""
+    from intfftk.utils.roofline import audit_kernel_ops
 
     cfg = FFTConfig(n=1 << 12, data_width=16, twiddle_width=16,
                     mode="scaled", rounding="round")
@@ -319,8 +330,8 @@ def test_audit_kernel_ops():
     assert alu < 12.0 * (stages + 1)
     assert alu > 5.0 * stages
     assert move > 0
-    alu_raw, _ = audit_kernel_ops(cfg, 64, 64, order="raw")
-    assert alu_raw == alu
+    alu_inv, _ = audit_kernel_ops(cfg, 64, 64, inverse=True)
+    assert 5.0 * stages < alu_inv < 12.0 * (stages + 1)
 
 
 def _adversarial(n, batch, w=16):
@@ -347,7 +358,7 @@ def test_pallas_fullscale_register_wrap(mode, rounding, inverse):
     if cfg.output_width > 32:
         cfg = FFTConfig(n=256, mode=mode, rounding=rounding, data_width=12,
                         twiddle_width=16)
-    xr, xi = _adversarial(256, LANE_TILE, cfg.data_width)
+    xr, xi = _adversarial(256, BATCH, cfg.data_width)
     gr, gi = fft_int(xr, xi, cfg, inverse=inverse)
     dr, di = PallasFFTPlan(cfg, layout="bn", interpret=True,
                            inverse=inverse)(xr, xi)
@@ -356,7 +367,7 @@ def test_pallas_fullscale_register_wrap(mode, rounding, inverse):
 
 
 def test_large_fullscale_register_wrap():
-    """Same sharp edge through the whole-fused four-step pipeline."""
+    """Same sharp edge through the two-pass four-step pipeline."""
     cfg = FFTConfig(n=1 << 12, mode="scaled", rounding="round",
                     data_width=16, twiddle_width=16)
     plan = LargeFFTPlan(cfg, interpret=True)
@@ -369,7 +380,7 @@ def test_large_fullscale_register_wrap():
 
 def test_staged_xla_fullscale_register_wrap():
     """And through the staged XLA core (narrow + wide butterflies)."""
-    from intfftk_tpu.ops.transform import FFTPlan
+    from intfftk.ops.transform import FFTPlan
     cfg = FFTConfig(n=256, mode="scaled", rounding="round", data_width=16,
                     twiddle_width=16)
     xr, xi = _adversarial(256, 4)
@@ -378,7 +389,7 @@ def test_staged_xla_fullscale_register_wrap():
     np.testing.assert_array_equal(gr, np.asarray(dr, np.int64))
     np.testing.assert_array_equal(gi, np.asarray(di, np.int64))
     # wide path: 40-bit scaled/round data (limb-plane butterflies)
-    from intfftk_tpu.ops.transform import WideFFTPlan
+    from intfftk.ops.transform import WideFFTPlan
     cfgw = FFTConfig(n=64, mode="scaled", rounding="round", data_width=40,
                      twiddle_width=16)
     xrw, xiw = _adversarial(64, 4, 40)

@@ -3,7 +3,7 @@
 The golden oracle computes in int64/object (``golden.int_model``); the
 device path carries the same values in two int32 planes (``ops.wideint``).
 Bit-for-bit equality across the full admissible width range (33..52) is
-the contract — the TPU analog of the reference's double/triple-DSP tier
+the contract — the device analog of the reference's double/triple-DSP tier
 verification.
 """
 
@@ -12,10 +12,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden.int_model import fft_int
-from intfftk_tpu.ops.transform import WideFFTPlan, fft_ifft_pair, make_plan
-from intfftk_tpu.ops.wideint import (WideCmultPlan, wide_add, wide_cmult,
+from intfftk.config import FFTConfig
+from intfftk.golden.int_model import fft_int
+from intfftk.ops.transform import WideFFTPlan, fft_ifft_pair, make_plan
+from intfftk.ops.wideint import (WideCmultPlan, wide_add, wide_cmult,
                                      wide_from_i64_np, wide_neg_guarded,
                                      wide_round_half_up, wide_shr1, wide_sub,
                                      wide_to_i64_np)
@@ -147,39 +147,19 @@ def test_wide_pair_roundtrip_is_n_times_input():
     assert np.array_equal(pi, gii.astype(np.int64))
 
 
-# ------------------------------------------------------- fused Pallas wide
-
-@pytest.mark.parametrize("n,mode,rounding,dw,tw", [
-    (256, "unscaled", "truncate", 30, 16),
-    (256, "scaled", "round", 40, 18),
-    (1024, "unscaled", "truncate", 24, 25),
-])
-@pytest.mark.parametrize("inverse", [False, True])
-def test_pallas_wide_kernel_bitexact(n, mode, rounding, dw, tw, inverse):
-    from intfftk_tpu.ops.pallas_fft import PallasWideFFTPlan
-
-    cfg = FFTConfig(n=n, mode=mode, rounding=rounding, data_width=dw,
-                    twiddle_width=tw)
-    plan = PallasWideFFTPlan(cfg, inverse=inverse, interpret=True)
-    re = rand_wide(dw, (n, 128))
-    im = rand_wide(dw, (n, 128))
-    yr, yi = plan(re, im)
-    gr, gi = fft_int(re.T, im.T, cfg, inverse=inverse)
-    assert np.array_equal(yr, gr.T.astype(np.int64))
-    assert np.array_equal(yi, gi.T.astype(np.int64))
-
+# ------------------------------------------------------ four-step wide
 
 @pytest.mark.parametrize("mode,dw", [("unscaled", 20), ("unscaled", 24)])
 def test_large_plan_wide_pass(mode, dw):
-    """64k-point unscaled transform whose second pass exceeds 32 bits:
-    the in-chip four-step escalates pass 2 (and pass 1 at dw=24 + 8 stages
-    = 32 -> w1 = 32, narrow; out 40 -> wide) to the limb-plane kernel."""
-    from intfftk_tpu.golden.four_step import four_step_int
-    from intfftk_tpu.ops.pallas_fft import LargeFFTPlan
+    """64k-point unscaled transform whose second pass exceeds 32 bits
+    (dw=24 + 8 stages = 32 -> w1 = 32, narrow; out 40 -> wide): the plan
+    runs the four-step on the XLA limb-plane path."""
+    from intfftk.golden.four_step import four_step_int
+    from intfftk.ops.pallas_fft import LargeFFTPlan
 
     cfg = FFTConfig(n=1 << 16, mode=mode, data_width=dw, twiddle_width=16)
     plan = LargeFFTPlan(cfg, interpret=True)
-    assert plan.wide2
+    assert plan.wide2 and plan.kernel == "xla"
     re = rand_wide(dw, (1, cfg.n))
     im = rand_wide(dw, (1, cfg.n))
     yr, yi = plan(re.astype(np.int32), im.astype(np.int32))
